@@ -15,8 +15,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-from platanus3_tpu.utils.backend import ensure_backend
-ensure_backend()
 import jax
 
 from platanus3_tpu.config import AssemblyConfig

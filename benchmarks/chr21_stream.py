@@ -54,8 +54,6 @@ def main():
                          "leg: streaming x hash-prefix sharding)")
     args = ap.parse_args()
 
-    from platanus3_tpu.utils.backend import ensure_backend
-    ensure_backend()
     import jax
     from platanus3_tpu import sim
     from platanus3_tpu.config import AssemblyConfig

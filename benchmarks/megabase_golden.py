@@ -8,8 +8,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 from collections import Counter
 def p(*a): print(*a, flush=True)
-from platanus3_tpu.utils.backend import ensure_backend
-ensure_backend()
 import jax
 from platanus3_tpu.config import AssemblyConfig
 from platanus3_tpu.pipeline import assemble

@@ -54,8 +54,6 @@ def main():
     args = ap.parse_args()
 
     import dataclasses
-    from platanus3_tpu.utils.backend import ensure_backend
-    ensure_backend()
     from platanus3_tpu import sim
     from platanus3_tpu.config import AssemblyConfig
     from platanus3_tpu.graph.multik import assemble_multik

@@ -8,7 +8,7 @@ thousands of unitigs and junction tangles, and the DEEP golden contract
 (S multiset, junction (kmer, KC) multiset, canonicalized L multiset --
 reference ``src/DeBruijnGraph.cpp:451-544``) is checked at that scale.
 
-Also records per-stage wall-clock and peak device memory (TPU
+Also records per-stage wall-clock and peak device memory (device
 ``memory_stats``) for the graph stage at-scale evidence.
 
 Usage:  python benchmarks/repeat_golden.py [--glen 2000000] [--no-ref]
@@ -50,8 +50,6 @@ def main():
                          "'realistic')")
     args = ap.parse_args()
 
-    from platanus3_tpu.utils.backend import ensure_backend
-    ensure_backend()
     import jax
     from platanus3_tpu import sim
     from platanus3_tpu.config import AssemblyConfig

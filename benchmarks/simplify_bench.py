@@ -51,8 +51,6 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    from platanus3_tpu.utils.backend import ensure_backend
-    ensure_backend()
     from platanus3_tpu import sim
     from platanus3_tpu.config import AssemblyConfig
     from platanus3_tpu.pipeline import assemble

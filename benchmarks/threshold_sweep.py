@@ -47,8 +47,6 @@ def main():
                          "(sim.realistic_genome) instead of uniform-random")
     args = ap.parse_args()
 
-    from platanus3_tpu.utils.backend import ensure_backend
-    ensure_backend()
     from platanus3_tpu import sim
     from platanus3_tpu.config import AssemblyConfig
     from platanus3_tpu.sweep import solid_threshold_sweep

@@ -1,6 +1,6 @@
-"""platanus3-tpu: a TPU-native de Bruijn assembly framework.
+"""platanus3-tpu: a de Bruijn assembly framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference C++ assembler taichimai/platanus3 (see SURVEY.md): FASTA/FASTQ
 loading, exact short-k-mer counting, window-min solidity filtering, Bloom
 membership, implicit de Bruijn graph construction with

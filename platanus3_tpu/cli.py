@@ -19,7 +19,7 @@ import sys
 def build_parser():
     p = argparse.ArgumentParser(
         prog="platanus3-tpu",
-        description="TPU-native de Bruijn assembler "
+        description="De Bruijn assembler on an accelerator "
                     "(platanus3-capable, JAX/XLA).")
     p.add_argument("-i", dest="readfile", required=False,
                    help="input reads (.fasta/.fastq)")
@@ -62,7 +62,7 @@ def build_parser():
                    help="shard stage 1 over all visible devices")
     p.add_argument("--streaming", action="store_true",
                    help="bounded-memory mode for read sets larger than "
-                        "device HBM (two-pass counting)")
+                        "device memory (two-pass counting)")
     p.add_argument("--slice-chunks", type=int, default=2048,
                    help="chunks resident per device step in --streaming")
     p.add_argument("--short-cap-log2", type=int, default=0,
@@ -90,11 +90,18 @@ def build_parser():
 
 
 def main(argv=None):
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """Parse ``argv`` and assemble; returns the ``AssemblyResult`` (None
+    when no read file is given and only the usage line is printed)."""
     args = build_parser().parse_args(argv)
     if not args.readfile:
         print("Usage: platanus3-tpu -i {readfile} -k {kmersize} "
               "-t {numthread}")
-        return 0
+        return None
 
     from platanus3_tpu.config import AssemblyConfig
     from platanus3_tpu.pipeline import assemble
@@ -154,7 +161,7 @@ def main(argv=None):
         n = gfa_mod.write_contig_fasta(args.fasta_out, res.gfa_lines,
                                        min_len=args.min_contig)
         print(f"wrote {args.fasta_out}: {n} contigs")
-    return 0
+    return res
 
 
 if __name__ == "__main__":

@@ -48,9 +48,8 @@ class AssemblyConfig:
     use_exact_membership: bool = True
     # Adjacency membership oracle.  True (default): binary search in the
     # exact sorted solid-k-mer table -- no false positives, and no Bloom
-    # BUILD cost (XLA scatter-max runs ~75M updates/s on TPU: ~2.6 s
-    # for a 10 Mb batch's 200M probe bits vs 0.4 s for the whole
-    # counting sort).  False: probe the Bloom
+    # BUILD cost (one probe-bit scatter per hash per node; device time
+    # not measured).  False: probe the Bloom
     # filter exactly like the reference (``IsRecorded``,
     # src/DeBruijnGraph.cpp:317-323), false positives included.  With
     # adequately sized filters both modes produce identical assemblies.

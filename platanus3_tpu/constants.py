@@ -1,6 +1,6 @@
 """Global encoding constants.
 
-TPU-native equivalent of the reference's global tables (reference:
+Equivalent of the reference's global tables (reference:
 ``src/common.h:31-33``): 2-bit base code A=0, C=1, G=2, T=3, complement
 A<->T, C<->G.  The complement of a 2-bit code ``b`` is ``3 - b`` which is
 bitwise NOT within the 2-bit field -- the bit trick every kernel here relies

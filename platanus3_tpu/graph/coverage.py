@@ -1,6 +1,6 @@
 """Node coverage + junction edge tallies as segment reductions.
 
-TPU-native replacement for ``DeBruijnGraph::CountNodeCoverage`` (reference
+Array replacement for ``DeBruijnGraph::CountNodeCoverage`` (reference
 ``src/DeBruijnGraph.cpp:393-449``): the reference re-scans every read with
 a rolling k-mer window under ``omp critical`` sections; here the second
 pass is one vectorized node-id lookup per owned read position followed by
@@ -50,11 +50,8 @@ class CoverageResult(NamedTuple):
     node_cov: jnp.ndarray      # [M] int32 coverage per node id
     jun_tally: jnp.ndarray     # [M*8] int32 FLAT (row nid*8 + col);
                                # cols 0-3 left A/C/G/T, 4-7 right A/C/G/T.
-                               # Flat because an [M, 8] int32 result gets
-                               # a 128-lane tiled layout (minor dim 8
-                               # padded to 128 = 16x HBM, 24 GiB at chr21
-                               # scale); rows are gathered only at the
-                               # small junction pack (graph/emit.py).
+                               # Rows are gathered only at the small
+                               # junction pack (graph/emit.py).
     """Both relative to the node's canonical orientation."""
 
 

@@ -93,16 +93,14 @@ def materialize_sequences(dbg: DBG, chars, *, k: int, ucap: int,
         tgt = jnp.where(valid_u, base_off + j, char_cap)
         flat = flat.at[tgt].set(ch, mode="drop")
 
-    # Member chars: one scatter across all states (all flat [2M];
-    # chunked -- 94M-row scatters at chr21 scale, build.chunked_gather).
-    from platanus3_tpu.graph.build import chunked_scatter_set
+    # Member chars: one scatter across all states (all flat [2M]).
     uid = dbg.node_state_uid
     pos = dbg.node_state_pos
     ch = chars.astype(jnp.uint8)
     memb = (uid >= 0) & (pos >= 1) & (uid < ucap)
     uidc = jnp.clip(uid, 0, ucap - 1)
     tgt = jnp.where(memb, offs[uidc] + pos + (k - 1), char_cap)
-    flat = chunked_scatter_set(flat, tgt, ch)
+    flat = flat.at[tgt].set(ch, mode="drop")
 
     return SeqPack(flat=flat, offs=offs, ulen=ulen, circular=circ)
 

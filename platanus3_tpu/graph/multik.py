@@ -34,8 +34,9 @@ def assemble_multik(source, config: AssemblyConfig, log=None, mesh=None,
 
     ``streaming=True`` runs every round through the bounded-memory
     streaming pipeline (VERDICT r4 item 4) -- multi-k at read volumes the
-    single-shot pipeline cannot hold in HBM; results at any given k are
-    byte-identical between the two executors (tests/test_simplify_multik).
+    single-shot pipeline cannot hold in device memory; results at any
+    given k are byte-identical between the two executors
+    (tests/test_simplify_multik).
     """
     ks = tuple(config.k_list) or (config.k,)
     if isinstance(source, (list, tuple)):

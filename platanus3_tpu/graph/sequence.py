@@ -22,9 +22,7 @@ __all__ = ["member_chars"]
 
 def member_chars(dbg: DBG, k: int) -> jnp.ndarray:
     """[2M] uint32 char code contributed by each node state
-    (``s = 2*node + o``; FLAT -- an [M, 2] stack would be assigned a
-    128-lane tiled layout, 64x HBM at chromosome scale, see DBG
-    docstring).
+    (``s = 2*node + o``; flat, like every per-state DBG array).
 
     o=0 (canonical orientation): last base of the canonical k-mer;
     o=1: last base of the reverse complement = complement of first base.

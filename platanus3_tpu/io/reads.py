@@ -58,6 +58,7 @@ class ReadBatch:
     k:        the large k the chunking stride was built for
     all_bases: total kept bases (Bloom sizing input, ``src/Load.cpp:62``)
     num_reads: number of kept reads
+    parser:   which loader built the batch ("native" C++ or "numpy")
     """
 
     packed: np.ndarray
@@ -71,6 +72,7 @@ class ReadBatch:
     k: int
     all_bases: int
     num_reads: int
+    parser: str = "numpy"
 
     @property
     def num_chunks(self) -> int:

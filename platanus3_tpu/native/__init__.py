@@ -1,15 +1,18 @@
 """Native (C++) data loader bindings via ctypes.
 
-Builds ``libp3native.so`` from ``packer.cpp`` on first use (cached next to
-the source; rebuilt when the source is newer).  Falls back silently to the
-numpy parser in ``io/reads.py`` when no compiler is available -- the two
-paths implement the same contract and are cross-checked by
-``tests/test_native.py``.
+Builds ``libp3native-<digest>.so`` from ``packer.cpp`` on first use, next
+to the source (git-ignored).  The digest covers the source and the compile
+command, so an edited source builds a new library and a stale binary is
+never loaded.  Falls back to the numpy parser in ``io/reads.py`` when no
+compiler is available -- the two paths implement the same contract and are
+cross-checked by ``tests/test_native.py``; ``ReadBatch.parser`` records
+which one ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional
@@ -18,22 +21,30 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "packer.cpp")
-_LIB = os.path.join(_DIR, "libp3native.so")
+_CXX = ["g++", "-O3", "-shared", "-fPIC", "-pthread"]
 
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-pthread",
-           "-o", _LIB + ".tmp", _SRC]
+def lib_path() -> str:
+    """Path of the library built from the current source and flags."""
+    h = hashlib.sha256(" ".join(_CXX).encode())
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(_DIR, f"libp3native-{h.hexdigest()[:12]}.so")
+
+
+def _build(path: str) -> bool:
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        r = subprocess.run(cmd, capture_output=True, timeout=240)
+        r = subprocess.run(_CXX + ["-o", tmp, _SRC], capture_output=True,
+                           timeout=240)
     except (OSError, subprocess.TimeoutExpired):
         return False
     if r.returncode != 0:
         return False
-    os.replace(_LIB + ".tmp", _LIB)
+    os.replace(tmp, path)
     return True
 
 
@@ -44,12 +55,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _tried:
         return None
     _tried = True
-    if (not os.path.exists(_LIB)
-            or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-        if not _build():
-            return None
+    path = lib_path()
+    if not os.path.exists(path) and not _build(path):
+        return None
     try:
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(path)
     except OSError:
         return None
     lib.p3_open.restype = ctypes.c_void_p
@@ -93,7 +103,7 @@ def load_reads_native(path: str, k: int, chunk_len: int, threads: int = 8):
                 prev_base=np.full(1, 4, np.uint8),
                 next_base=np.full(1, 4, np.uint8),
                 chunk_len=chunk_len, k=k, all_bases=all_bases,
-                num_reads=num_reads)
+                num_reads=num_reads, parser="native")
         packed = np.empty((c, chunk_len // 16), np.uint32)
         valid_len = np.empty(c, np.int32)
         read_id = np.empty(c, np.int32)
@@ -109,6 +119,6 @@ def load_reads_native(path: str, k: int, chunk_len: int, threads: int = 8):
             packed=packed, valid_len=valid_len, read_id=read_id,
             start=start, read_len=read_len, prev_base=prev_base,
             next_base=next_base, chunk_len=chunk_len, k=k,
-            all_bases=all_bases, num_reads=num_reads)
+            all_bases=all_bases, num_reads=num_reads, parser="native")
     finally:
         lib.p3_close(h)

@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ parser + 2-bit chunk packer.
 //
-// Host-side data loader for the TPU pipeline (ctypes API, no pybind).
+// Host-side data loader for the device pipeline (ctypes API, no pybind).
 // Replaces the reference's getline-per-line, std::string-append parser
 // (reference src/Load.cpp:32-103) with a single mmap-style buffered scan
 // and multithreaded packing into the framework's chunked layout
@@ -13,8 +13,9 @@
 //  * reads shorter than k dropped; all_bases counts kept reads only
 //  * A/C/G/T (either case) -> 0/1/2/3, anything else -> 0
 //
-// Build: g++ -O3 -march=native -shared -fPIC -pthread -o libp3native.so
-// (driven by native/__init__.py; falls back to numpy parsing when absent).
+// Built on first use by native/__init__.py (g++ -O3 -shared -fPIC -pthread)
+// into a source-digest-named library; falls back to numpy parsing when no
+// compiler is available.
 
 #include <cstdint>
 #include <cstdio>

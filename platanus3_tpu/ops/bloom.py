@@ -1,6 +1,6 @@
 """Bloom filter over device arrays (packed uint32 words).
 
-TPU-native re-design of ``BF<Key>`` (reference ``src/bloomfilter.cpp``):
+Array re-design of ``BF<Key>`` (reference ``src/bloomfilter.cpp``):
 instead of one ``std::vector<bool>`` probed k-mer-at-a-time, the filter is
 a device-resident PACKED bit array (32 bits per uint32 word) and add/query
 are BULK operations over whole k-mer batches.  Membership semantics match
@@ -8,13 +8,13 @@ the reference exactly: ``num_hashes`` double-hash probes, no false
 negatives, AND over probes for queries (``BF::possiblyContains``,
 ``src/bloomfilter.cpp:76-86``).
 
-Build is fully VECTORIZED -- no scalar-core scatter of individual probe
-bits (round 1 used a byte-per-bit array + scatter-max, 8x the HBM and
-~75M scalar updates/s).  The OR-scatter a packed filter needs is
+Build is fully VECTORIZED -- no scatter of individual probe bits (round 1
+used a byte-per-bit array + scatter-max, 8x the memory).  The OR-scatter a
+packed filter needs is
 re-expressed as sort + dedup + scatter-ADD:
 
-  1. probe bit positions for the whole batch (``ops/hashing.py``, VPU);
-  2. one ``lax.sort`` of the positions (TPU sorts are bandwidth-bound);
+  1. probe bit positions for the whole batch (``ops/hashing.py``);
+  2. one ``lax.sort`` of the positions;
   3. drop duplicate positions (compare-with-neighbor mask) -- after
      dedup every surviving (word, bit) pair is unique, so per-word SUM of
      ``1 << bit`` equals per-word OR;
@@ -75,8 +75,7 @@ def make_bloom(min_bits: int, num_hashes: int) -> BloomFilter:
     ``src/bloomfilter.cpp:66`` -- rounding up only lowers the FPR)."""
     lb = log2_ceil(min_bits)
     # <= 2^31 bits: single-u32 probe positions; (2^31, 2^35]: the wide
-    # (hi, lo) two-lane path below.  2^35 bits = 4 GiB of filter words,
-    # the practical single-chip HBM ceiling.
+    # (hi, lo) two-lane path below.  2^35 bits = 4 GiB of filter words.
     assert lb <= 35, (
         f"filter of 2^{lb} bits (> 2^35 = 4 GiB) not supported single-chip;"
         f" pass filter_bits explicitly or shard the filter over a mesh")
@@ -104,10 +103,7 @@ def bloom_add(bf: BloomFilter, kmers: jnp.ndarray, k: int,
     k-mers / colliding probes are deduplicated by the sort (idempotent
     insert), see module docstring.
     """
-    # Flatten batch dims: probe arrays must be [H, N], not [H, ..., b]
-    # -- a trailing batch dim of e.g. 8 (the [M, 8, L] neighbor query)
-    # gets TPU-tile-padded to 128 lanes, a 16x HBM blowup that OOMs at
-    # chromosome scale (same class as the r3 probe-axis fix).
+    # Flatten batch dims: probe arrays are [H, N], not [H, ..., b].
     kmers = kmers.reshape(-1, kmers.shape[-1])
     if mask is not None:
         mask = mask.reshape(-1)

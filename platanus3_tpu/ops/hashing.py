@@ -1,14 +1,14 @@
 """Vectorized k-mer hashing (uint32 lanes, murmur3-style mixing).
 
-TPU-native replacement of ``GetDoubleHash_64bit`` (reference
+Array replacement of ``GetDoubleHash_64bit`` (reference
 ``src/MyHash.cpp:21-35``).  The reference hashes ``std::hash<bitset>`` output
 through murmur3's finalizer; ``std::hash`` is implementation-defined, so the
 exact hash values are NOT part of the behavioral contract -- only the Bloom
 filter's no-false-negative property and tunable FPR are (SURVEY.md §7.3).
 
 Here every k-mer is ``[..., L] uint32`` and we run a murmur3-32-like
-per-lane mix entirely in uint32 (wrapping) arithmetic -- no 64-bit emulation
-on TPU.  Two independently seeded hashes drive the double-hashing probe
+per-lane mix entirely in uint32 (wrapping) arithmetic -- no 64-bit
+arithmetic.  Two independently seeded hashes drive the double-hashing probe
 sequence ``h1 + n*h2`` (reference ``src/bloomfilter.cpp:58-66``); filter
 sizes are powers of two so the ``mod`` is a mask and the u32 wraparound of
 ``h1 + n*h2`` is exact modular arithmetic.
@@ -47,8 +47,9 @@ def _fmix32(h: jnp.ndarray) -> jnp.ndarray:
 def hash_kmers(kmers: jnp.ndarray, k: int, seed: int) -> jnp.ndarray:
     """Hash ``[..., L] uint32`` k-mers to ``[...] uint32``.
 
-    Murmur3-32 body over the lanes (static L-step unrolled loop -> pure VPU
-    integer ops, fuses into surrounding extraction/Bloom code under jit).
+    Murmur3-32 body over the lanes (static L-step unrolled loop -> pure
+    elementwise integer ops, fuses into surrounding extraction/Bloom code
+    under jit).
     """
     l = num_lanes(k)
     assert kmers.shape[-1] == l
@@ -78,11 +79,8 @@ def probe_positions(h1: jnp.ndarray, h2: jnp.ndarray, num_hashes: int,
     (``src/bloomfilter.cpp:58-66``) with a power-of-two modulus so u32
     wraparound is exact.
 
-    The probe axis LEADS: TPU tiling pads the two minor dims to (8, 128),
-    so a minor probe axis of length ~10-20 would inflate the array's HBM
-    footprint ~12x (observed: a [4.2M, 8, 10] u32 probe tensor padded to
-    16 GiB and OOM'd an 80-Mbase bloom-mode run).  Leading, it is a cheap
-    major dimension and the minor dims stay the large query axes.
+    The probe axis LEADS: it is a short major dimension and the minor
+    dims stay the large query axes.
     """
     n = jnp.arange(num_hashes, dtype=jnp.uint32).reshape(
         (num_hashes,) + (1,) * h1.ndim)

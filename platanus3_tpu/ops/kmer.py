@@ -1,6 +1,6 @@
 """Core k-mer bit primitives as vectorized JAX ops.
 
-TPU-native re-design of the reference's ``std::bitset``-based k-mer layer
+Array re-design of the reference's ``std::bitset``-based k-mer layer
 (reference: ``src/BitCalc.cpp``).  Instead of one arbitrary-width bitset per
 k-mer processed in a scalar loop, a batch of k-mers is a ``uint32`` array of
 shape ``[..., L]`` with ``L = ceil(k/16)`` lanes:
@@ -17,7 +17,7 @@ and reverse complement is bitwise NOT + 2-bit-group reversal
 (``src/BitCalc.cpp:35-45``).
 
 Everything here is shape-static and branch-free so it fuses under ``jit``
-and vectorizes on the TPU VPU; the hot extraction path builds all k-mers of
+and vectorizes; the hot extraction path builds all k-mers of
 a read batch with 16 slice-OR ops instead of a sequential rolling scan.
 """
 
@@ -308,7 +308,7 @@ def extract_kmers(bases: jnp.ndarray, lengths: jnp.ndarray, k: int):
       ``(fw, valid)`` with ``fw: [C, P, L] uint32`` (``P = N - k + 1``) and
       ``valid: [C, P] bool`` (position ``p`` valid iff ``p + k <= length``).
 
-    This is the TPU replacement for the reference's per-position rolling
+    This is the array replacement for the reference's per-position rolling
     loop (hot loops #1-#3, ``src/Load.cpp:118-124`` /
     ``src/MakeBloomFilter.cpp:52-74``): one ``sliding_words`` pass then
     ``L`` static slices per lane -- O(1) work per (position, lane) with no

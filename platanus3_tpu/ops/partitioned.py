@@ -17,8 +17,7 @@ become *collect -> count*:
       sort by partition id plus P fixed-size dynamic-update-slice block
       writes at per-partition fill offsets (the next slice's block
       overwrites the previous block's padding tail, so the buffers stay
-      dense).  ~60 ms per 16M-position slice on a v5e -- no global table
-      is touched.
+      dense).  No global table is touched.
   pass 1 (count): each partition is sorted ONCE (`count.sort_kmers` +
       run-total scans), and every row's run total is scattered to a
       per-POSITION counts array via the carried position id.  Total sort
@@ -35,7 +34,7 @@ become *collect -> count*:
       lex-sorted node table -- identical to the single-shot pipeline's.
 
 Buffers are DONATED through the jitted slice programs, so XLA updates
-them in place (verified on-device: no copy, no HBM growth).  Hash
+them in place (no copy, no device-memory growth).  Hash
 partitioning (murmur lanes mix, ops/hashing.py) keeps partition loads
 uniform even on skewed genome composition, unlike key-prefix splits
 (canonical k-mers are lexicographically biased toward A/C starts).
@@ -77,8 +76,7 @@ __all__ = ["NUM_PARTS", "plan_caps", "histogram_short_slice",
            "place_block", "finalize_table"]
 
 # Number of hash partitions.  16 keeps each chr21-scale partition sort
-# (~37M rows) a sub-second execution (far under the TPU worker's
-# per-execution watchdog) while the per-slice append loop stays 16 short
+# at ~37M rows while the per-slice append loop stays 16 short
 # dynamic-update-slice blocks.
 NUM_PARTS = 16
 
@@ -90,10 +88,8 @@ _NOT_MSB = np.uint32(0x7FFFFFFF)
 def _sort_cols(cols, invalid, payloads, kk):
     """Non-stable sort of COLUMN-TUPLE keys with invalids last -- the
     column-wise twin of ``count.sort_kmers``.  Never stacks the lanes
-    into an [N, L] array: at multi-k lane counts (L=4 for k=64, L=8 for
-    k=128) XLA assigned the stacked intermediate a 128-lane tiled layout
-    (minor dim L padded to 128 -- a 21 GiB allocation at a 10M-row
-    partition, OOM'd the first 120-Mbase multi-k streaming run).
+    into an [N, L] array (ROADMAP C4 re-tests whether the column form
+    still earns its place).
 
     Returns ``(sorted_cols tuple, sorted_invalid, sorted_payloads
     tuple)``; same ordering contract as sort_kmers (invalid flag folded

@@ -163,10 +163,9 @@ def first_solid_per_read(result: SolidResult, read_id, start, num_reads: int):
     read-major with ascending start, and owned local positions ascend with
     global position -- so the flat (chunk, position) index order IS global
     position order within each read.  The per-read minimum then reduces to
-    a cheap per-chunk row min (VPU reduction over the position axis)
+    a cheap per-chunk row min (reduction over the position axis)
     followed by a segment_min over the ~C chunk rows and an R-row gather;
-    no N-row scatter/segment op remains (those run at only ~100M elem/s on
-    TPU, tools/microbench.py).
+    no N-row scatter/segment op remains.
     """
     c, pk, l = result.fw.shape
     n = c * pk

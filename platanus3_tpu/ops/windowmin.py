@@ -1,15 +1,14 @@
 """Sliding-window minimum via doubling (sparse-table) decomposition.
 
-TPU analog of the reference's monotonic-deque sliding minimum (misnamed
+Array analog of the reference's monotonic-deque sliding minimum (misnamed
 ``RMQ``, reference ``src/MakeBloomFilter.cpp:8-22``): for window width
 ``w`` over a vector ``v`` it yields ``out[j] = min(v[j : j+w])`` with
 ``len(out) = len(v) - w + 1``.  The deque is inherently sequential;
-``lax.reduce_window`` expresses the parallel version but lowers to an
-O(w)-per-element windowed reduction on TPU (measured ~200 ms for a
-10M x width-5 min).  The sparse-table trick is O(log w) shifted
+``lax.reduce_window`` expresses the parallel version as an O(w)-per-element
+windowed reduction.  The sparse-table trick is O(log w) shifted
 elementwise mins instead: build ``m_p[j] = min(v[j:j+p])`` for the largest
 power of two ``p <= w`` by doubling, then combine two overlapping
-p-windows.  ~3 VPU passes for the production w=5.
+p-windows.  ~3 elementwise passes for the production w=5.
 
 Used to turn per-position short-k-mer counts into a conservative coverage
 estimate per large k-mer (reference ``src/MakeBloomFilter.cpp:62``):

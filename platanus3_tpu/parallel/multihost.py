@@ -1,16 +1,17 @@
 """Multi-host (multi-process) execution support.
 
-On a real TPU pod slice each host runs one process and sees only its
-local chips; ``jax.distributed`` links them into one global runtime and
-``jax.sharding.Mesh`` spans all chips.  This module wraps that setup for
+On a multi-host cluster each host runs one process and sees only its
+local devices; ``jax.distributed`` links them into one global runtime and
+``jax.sharding.Mesh`` spans all devices.  This module wraps that setup for
 the assembler:
 
 * :func:`initialize` -- bring up the global runtime (idempotent; no-op
   for single-process runs);
-* :func:`global_mesh` -- a 1-D ``('d',)`` mesh over ALL chips in the
-  slice; ``parallel/sharded.py`` then shards chunks over hosts AND chips
-  uniformly (the all-to-all count shuffle rides ICI within a host and
-  DCN across hosts, exactly the BASELINE north-star layout);
+* :func:`global_mesh` -- a 1-D ``('d',)`` mesh over ALL devices of
+  every process; ``parallel/sharded.py`` then shards chunks over hosts
+  AND devices uniformly (the all-to-all count shuffle rides the
+  intra-host interconnect within a host and the network across hosts,
+  the BASELINE north-star layout);
 * :func:`host_local_batch` -- slice a globally-loaded ReadBatch to this
   process's shard (each host parses only its slice of the read file in a
   real deployment; for moderate inputs every host may parse the whole
@@ -21,9 +22,8 @@ the assembler:
 
 The logic is identical to the single-process mesh path (which IS tested,
 on 8 virtual CPU devices -- results are bitwise-equal to 1 device); this
-layer only changes who owns which rows.  It cannot be exercised in this
-container (one process, one chip) and is therefore kept thin and
-dependency-free.
+layer only changes who owns which rows.  ``tests/test_multihost.py``
+runs it with several CPU processes; it is kept thin and dependency-free.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ _initialized = False
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """Start the multi-process runtime.  With no arguments JAX discovers
-    the topology from the TPU environment (GCE metadata / hostnames)."""
+    """Start the multi-process runtime.  With no arguments JAX tries to
+    discover the topology from a cluster environment it recognizes (a
+    single machine with no cluster environment stays single-process)."""
     global _initialized
     if _initialized:
         return
@@ -64,7 +65,7 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
 
 
 def global_mesh():
-    """1-D mesh over every chip in the slice (all hosts)."""
+    """1-D mesh over every device of every process."""
     return make_mesh(jax.devices())
 
 

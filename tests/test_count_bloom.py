@@ -272,3 +272,117 @@ def test_count_solid_with_ids_empty_and_all_solid():
     uniq = {s for s in K.decode_kmers_np(np.asarray(canon), k)}
     assert int(t2.size) == len(uniq)
     assert (np.asarray(nid2) >= 0).all()
+
+
+# ---- oracle cases for the plain counter and the packed Bloom build ----
+
+def _decode_table(table, k):
+    size = int(table.size)
+    keys = K.decode_kmers_np(np.asarray(table.keys[:size]), k)
+    return dict(zip(keys, np.asarray(table.counts[:size]).tolist()))
+
+
+@pytest.mark.parametrize("k", [11, 25, 40])
+def test_count_kmers_sampled_multiset_matches_counter(k):
+    # 60 distinct k-mers sampled 500 times, ~80% contributing: heavy
+    # duplication at single- and multi-lane widths.
+    uniq = [random_seq(k) for _ in range(60)]
+    picks = RNG.integers(0, len(uniq), size=500)
+    strs = [uniq[i] for i in picks]
+    contrib = RNG.random(500) < 0.8
+    kmers = jnp.asarray(K.encode_kmers_np(strs))
+    canon, _ = K.canonical(kmers, k)
+    table = C.count_kmers(canon, jnp.asarray(contrib), k=k)
+    want = Counter(canonical_str(s) for s, c in zip(strs, contrib) if c)
+    assert _decode_table(table, k) == dict(want)
+
+
+def test_count_kmers_all_duplicates_single_row():
+    k = 25
+    s = random_seq(k)
+    canon, _ = K.canonical(jnp.asarray(K.encode_kmers_np([s] * 300)), k)
+    table = C.count_kmers(canon, jnp.ones(300, bool), k=k)
+    assert _decode_table(table, k) == {canonical_str(s): 300}
+
+
+def test_count_kmers_empty_input():
+    k = 17
+    kmers = jnp.asarray(K.encode_kmers_np([random_seq(k) for _ in range(8)]))
+    canon, _ = K.canonical(kmers, k)
+    table = C.count_kmers(canon, jnp.zeros(8, bool), k=k)
+    assert int(table.size) == 0
+    assert int(jnp.sum(table.counts)) == 0
+
+
+def test_count_kmers_allones_palindrome_lane():
+    # T*16 A*16 is its own reverse complement and encodes as an all-ones
+    # lane: the counter must count it, not take it for padding.
+    k = 32
+    s = "T" * 16 + "A" * 16
+    canon, _ = K.canonical(jnp.asarray(K.encode_kmers_np([s] * 5)), k)
+    assert int(np.asarray(canon)[0, 0]) == 0xFFFFFFFF
+    table = C.count_kmers(canon, jnp.ones(5, bool), k=k)
+    assert _decode_table(table, k) == {s: 5}
+
+
+def _canon_batch(n, k):
+    strs = [random_seq(k) for _ in range(n)]
+    canon, _ = K.canonical(jnp.asarray(K.encode_kmers_np(strs)), k)
+    return canon
+
+
+def _numpy_bloom_words(canon, k, mask, log2_bits, hashes):
+    """Plain bit-set reference: set every probe bit one at a time."""
+    from platanus3_tpu.ops import hashing
+    h1, h2 = hashing.double_hash(canon, k)
+    pos = np.asarray(hashing.probe_positions(h1, h2, hashes, log2_bits))
+    words = np.zeros((1 << log2_bits) // 32, np.uint32)
+    for n in np.flatnonzero(np.asarray(mask)):
+        for p in pos[:, n].tolist():
+            words[p >> 5] |= np.uint32(1 << (p & 31))
+    return words
+
+
+@pytest.mark.parametrize("k,log2_bits,hashes", [(25, 18, 6), (32, 20, 10)])
+def test_bloom_add_packed_words_match_numpy_bitset(k, log2_bits, hashes):
+    canon = _canon_batch(3000, k)
+    mask = jnp.asarray(RNG.random(3000) < 0.8)
+    bf = B.bloom_add(B.make_bloom(1 << log2_bits, hashes), canon, k,
+                     mask=mask)
+    want = _numpy_bloom_words(canon, k, mask, log2_bits, hashes)
+    assert np.array_equal(np.asarray(bf.bits), want)
+
+
+def test_bloom_no_false_negatives_multi_block_filter():
+    k = 25
+    canon = _canon_batch(4000, k)
+    bf = B.bloom_add(B.make_bloom(1 << 23, 8), canon, k)
+    assert bf.bits.shape == ((1 << 23) // 32,)
+    assert bool(jnp.all(B.bloom_query(bf, canon, k)))
+
+
+def test_bloom_fpr_bound_and_masked_rows_absent():
+    k = 25
+    canon = _canon_batch(4000, k)
+    mask = jnp.asarray(np.arange(4000) < 3000)
+    bf = B.bloom_add(B.make_bloom(1 << 21, 8), canon, k, mask=mask)
+    q = np.asarray(B.bloom_query(bf, canon, k))
+    assert q[:3000].all()
+    # 3000 keys x 8 probes in 2^21 bits: theoretical FPR ~1e-8.
+    assert q[3000:].mean() < 0.05
+    fresh = np.asarray(B.bloom_query(bf, _canon_batch(4000, k), k))
+    assert fresh.mean() < 0.05
+
+
+def test_bloom_duplicates_idempotent_and_all_masked_empty():
+    k = 32
+    canon = _canon_batch(64, k)
+    once = B.bloom_add(B.make_bloom(1 << 19, 6), canon, k)
+    dup = B.bloom_add(B.make_bloom(1 << 19, 6),
+                      jnp.concatenate([canon] * 4, axis=0), k)
+    assert np.array_equal(np.asarray(once.bits), np.asarray(dup.bits))
+    assert bool(jnp.all(B.bloom_query(dup, canon, k)))
+
+    empty = B.bloom_add(B.make_bloom(1 << 19, 6), canon, k,
+                        mask=jnp.zeros(64, bool))
+    assert int(jnp.sum(empty.bits)) == 0

@@ -1,5 +1,6 @@
 """Native C++ loader vs numpy loader: identical ReadBatch contract."""
 
+import os
 import time
 
 import numpy as np
@@ -83,3 +84,21 @@ def test_native_is_faster_on_bulk(tmp_path):
     # Not a strict perf gate (CI noise), but native should never be slower
     # by more than 2x; typically it is several times faster.
     assert t_nat < max(t_py * 2.0, 0.5), (t_nat, t_py)
+
+
+def test_lib_path_is_source_digest_named():
+    path = native.lib_path()
+    assert os.path.dirname(path) == os.path.dirname(native.__file__)
+    name = os.path.basename(path)
+    assert name.startswith("libp3native-") and name.endswith(".so")
+    assert native.lib_path() == path  # stable for an unchanged source
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_load_reads_reports_parser(tmp_path, use_native):
+    path = str(tmp_path / "reads.fasta")
+    write_fasta(path, random_seqs(5, 100, 200))
+    batch = reads_mod.load_reads(path, 25, 256, use_native=use_native)
+    want = "native" if use_native and native.get_lib() is not None \
+        else "numpy"
+    assert batch.parser == want

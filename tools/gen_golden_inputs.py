@@ -5,7 +5,7 @@ bottleneck of every golden comparison, so the benchmark drivers decouple
 "generate input" / "run reference" / "run ours" / "compare": this script
 writes byte-identical read sets to what the benchmark scripts generate
 internally, so the reference runs can start first and proceed in the
-background while the TPU side runs.
+background while this framework runs.
 
   megabase : benchmarks/megabase_golden.py input (seed 99, 1 Mb, 8 kb
              reads step 400)
